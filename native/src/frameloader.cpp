@@ -1,8 +1,8 @@
-// topfusion_tpu native frame loader.
+// topfusion native frame loader.
 //
 // A multi-threaded, prefetching depth-frame pipeline: worker threads decode
 // 16-bit grayscale PNGs (the TUM/ICL depth format) into a bounded ring of
-// ready frames while the TPU computes, so host IO never stalls the fusion
+// ready frames while the device computes, so host IO never stalls the fusion
 // loop.  This is the native-runtime analogue of the reference's blocking
 // OpenNI capture thread (reference: tfusion/src/capture.cpp:205-245
 // OpenNISource::grab, which blocks on WaitAndUpdateAll every frame).

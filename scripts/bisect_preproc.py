@@ -1,11 +1,13 @@
 """Bisect preprocess_depth cost: which sub-op burns the time?"""
-import os, time
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/tmp/jax_cache_topfusion")
+import time
 import sys
 sys.path.insert(0, __file__.rsplit('/', 2)[0])
+from topfusion.utils.compile_cache import enable_compile_cache  # noqa: E402
+
+enable_compile_cache()
 import jax, jax.numpy as jnp
 import numpy as np
-from topfusion_tpu.ops.depth import (
+from topfusion.ops.depth import (
     depth_to_meters, bilateral_filter, truncate_depth, downsample_depth,
     _shifted,
 )

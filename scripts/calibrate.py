@@ -1,8 +1,10 @@
 """Calibrate per-call dispatch overhead on the current backend."""
-import os, time
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/tmp/jax_cache_topfusion")
+import time
 import sys
 sys.path.insert(0, __file__.rsplit('/', 2)[0])
+from topfusion.utils.compile_cache import enable_compile_cache  # noqa: E402
+
+enable_compile_cache()
 import jax, jax.numpy as jnp
 import numpy as np
 

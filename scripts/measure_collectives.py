@@ -77,7 +77,7 @@ def collective_bytes(compiled) -> dict:
 
 
 def measure(n_dev: int, w: int, h: int, capacity: int) -> dict:
-    from topfusion_tpu.config import (
+    from topfusion.config import (
         BlockMapConfig,
         CameraConfig,
         ICPConfig,
@@ -86,7 +86,7 @@ def measure(n_dev: int, w: int, h: int, capacity: int) -> dict:
         RaycastConfig,
         TSDFConfig,
     )
-    from topfusion_tpu.parallel.block_sharded import (
+    from topfusion.parallel.block_sharded import (
         ShardedBlockPipeline,
         make_mesh,
     )

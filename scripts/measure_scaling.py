@@ -3,31 +3,32 @@
 Runs the weak- and strong-scaling harness (BASELINE.md configs 4-5) over
 however many devices the backend exposes.  On the CPU CI mesh, run with:
 
-    JAX_PLATFORMS=cpu XLA_FLAGS=--xla_force_host_platform_device_count=8 \
-        python scripts/measure_scaling.py
+    python scripts/measure_scaling.py --cpu
 
-On a real TPU slice, run it as-is.  Prints one JSON line per mode.
+On a host with several GPUs, run it without ``--cpu``.  Prints one JSON
+line per mode.
 """
 import json
 import os
 import sys
-
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/tmp/jax_cache_topfusion")
 
 if "--cpu" in sys.argv:
     os.environ["XLA_FLAGS"] = (
         os.environ.get("XLA_FLAGS", "")
         + " --xla_force_host_platform_device_count=8"
     ).strip()
-    import sys
-sys.path.insert(0, __file__.rsplit('/', 2)[0])
-import jax
+sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
+import jax  # noqa: E402
+
+if "--cpu" in sys.argv:
     jax.config.update("jax_platforms", "cpu")
-else:
-    import jax
 
-from topfusion_tpu.config import (
+from topfusion.utils.compile_cache import enable_compile_cache  # noqa: E402
+
+enable_compile_cache()
+
+from topfusion.config import (
     BlockMapConfig,
     CameraConfig,
     ICPConfig,
@@ -36,7 +37,7 @@ from topfusion_tpu.config import (
     RaycastConfig,
     TSDFConfig,
 )
-from topfusion_tpu.parallel.multihost import measure_scaling_block
+from topfusion.parallel.multihost import measure_scaling_block
 
 
 def main() -> None:

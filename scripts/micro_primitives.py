@@ -1,9 +1,11 @@
 """Microbenchmarks of the scatter/sort/gather primitives that dominate the
 block pipeline, on the current backend.  Guides kernel redesign decisions."""
-import os, time
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/tmp/jax_cache_topfusion")
+import time
 import sys
 sys.path.insert(0, __file__.rsplit('/', 2)[0])
+from topfusion.utils.compile_cache import enable_compile_cache  # noqa: E402
+
+enable_compile_cache()
 import jax, jax.numpy as jnp
 import numpy as np
 
@@ -11,9 +13,7 @@ key = jax.random.PRNGKey(0)
 
 
 def _fence(out):
-    leaves = jax.tree_util.tree_leaves(out)
-    np.asarray(leaves[0].reshape(-1)[0])
-    return out
+    return jax.block_until_ready(out)
 
 
 def timeit(name, fn, *args, n=10):

@@ -5,10 +5,9 @@ BASELINE.md's accuracy protocol: the bar is set by running the reference
 *algorithm semantics* in this framework (exact mode =
 ``reference_exact_config``: positional bilateral/pyramid windows with
 invalid neighbours, per-pixel "take" gathers + bilinear association,
-level-0 stride 1, full-march raycast model maps, XLA integration) and
-checking that the production fast mode (flat row-gather ICP, nearest
-association, stride 2, splat model maps, Pallas integration) tracks the
-same trajectory.
+level-0 stride 1, full-march raycast model maps, no occlusion culling)
+and checking that the production fast mode (flat row-gather ICP, nearest
+association, stride 2, splat model maps) tracks the same trajectory.
 
 Runs the 90-frame VGA synthetic orbit at two sensor-noise levels and
 prints a markdown table of ATEs + the fast/exact ratio (docs/RESULTS.md
@@ -25,7 +24,9 @@ import sys
 import time
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/tmp/jax_cache_topfusion")
+from topfusion.utils.compile_cache import enable_compile_cache  # noqa: E402
+
+enable_compile_cache()
 
 import numpy as np
 
@@ -34,8 +35,8 @@ def run_mode(cfg, depths, gt):
     import jax
     import jax.numpy as jnp
 
-    from topfusion_tpu.io.trajectory import ate_rmse
-    from topfusion_tpu.models.block_pipeline import BlockPipeline
+    from topfusion.io.trajectory import ate_rmse
+    from topfusion.models.block_pipeline import BlockPipeline
 
     pipe = BlockPipeline(cfg)
     state = pipe.init()
@@ -69,14 +70,14 @@ def main() -> int:
     import jax
     import jax.numpy as jnp
 
-    from topfusion_tpu.config import (
+    from topfusion.config import (
         BlockMapConfig,
         CameraConfig,
         PipelineConfig,
         RaycastConfig,
         reference_exact_config,
     )
-    from topfusion_tpu.io.synthetic import (
+    from topfusion.io.synthetic import (
         SyntheticScene,
         add_depth_noise,
         orbit_trajectory,
@@ -88,13 +89,9 @@ def main() -> int:
     else:
         cam = CameraConfig(width=640, height=480, fx=500.0, fy=500.0,
                            cx=320.0, cy=240.0)
-    on_tpu = jax.devices()[0].platform not in ("cpu",)
     fast_cfg = PipelineConfig(
         camera=cam,
-        blockmap=BlockMapConfig(
-            max_visible_blocks=4096,
-            use_pallas_integrate=on_tpu,
-        ),
+        blockmap=BlockMapConfig(max_visible_blocks=4096),
         raycast=RaycastConfig(max_steps=192),
     )
     exact_cfg = reference_exact_config(fast_cfg)

@@ -1,5 +1,5 @@
 #!/usr/bin/env python
-"""Profile the chunked SLAM app's per-chunk host timeline on TPU.
+"""Profile the chunked SLAM app's per-chunk host timeline on the device.
 
 Splits each process_chunk call into: chunk dispatch+execute (fenced),
 host fetch, keyframe bookkeeping, loop-closure dispatches, and render —
@@ -14,6 +14,9 @@ import sys
 import time
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
+from topfusion.utils.compile_cache import enable_compile_cache  # noqa: E402
+
+enable_compile_cache()
 
 import numpy as np
 
@@ -22,8 +25,8 @@ def main() -> int:
     import jax
     import jax.numpy as jnp
 
-    from topfusion_tpu.io.synthetic import SyntheticScene, orbit_trajectory
-    from topfusion_tpu.models.slam import SlamSystem
+    from topfusion.io.synthetic import SyntheticScene, orbit_trajectory
+    from topfusion.models.slam import SlamSystem
     from bench import make_cfg
 
     cfg = make_cfg()
@@ -57,7 +60,7 @@ def main() -> int:
         t_dispatch = time.perf_counter() - t0
 
         t0 = time.perf_counter()
-        np.asarray(out[0].T_wc[0, 0])  # execution fence
+        jax.block_until_ready(out)
         t_exec = time.perf_counter() - t0
 
         t0 = time.perf_counter()

@@ -1,22 +1,24 @@
 """Sub-stage timing: splat internals + preprocess internals on the backend."""
-import os, time
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/tmp/jax_cache_topfusion")
+import time
 import sys
 sys.path.insert(0, __file__.rsplit('/', 2)[0])
+from topfusion.utils.compile_cache import enable_compile_cache  # noqa: E402
+
+enable_compile_cache()
 import jax, jax.numpy as jnp
 import numpy as np
 
-from topfusion_tpu.config import (
+from topfusion.config import (
     BlockMapConfig, CameraConfig, ICPConfig, PipelineConfig, RaycastConfig,
     TSDFConfig,
 )
-from topfusion_tpu.io.synthetic import SyntheticScene, orbit_trajectory
-from topfusion_tpu.models.block_pipeline import BlockPipeline
-from topfusion_tpu.ops.depth import (
+from topfusion.io.synthetic import SyntheticScene, orbit_trajectory
+from topfusion.models.block_pipeline import BlockPipeline
+from topfusion.ops.depth import (
     bilateral_filter, depth_to_meters, downsample_depth, preprocess_depth,
 )
-from topfusion_tpu.ops.splat import splat_model_maps
-from topfusion_tpu.ops.tsdf_block import visible_blocks
+from topfusion.ops.splat import splat_model_maps
+from topfusion.ops.tsdf_block import visible_blocks
 
 cam = CameraConfig()
 cfg = PipelineConfig(
@@ -44,9 +46,7 @@ depth_mm = frames[2]
 
 
 def _fence(out):
-    leaves = jax.tree_util.tree_leaves(out)
-    np.asarray(leaves[0].reshape(-1)[0])
-    return out
+    return jax.block_until_ready(out)
 
 
 def timeit(name, fn, *args, n=10):

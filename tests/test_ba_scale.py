@@ -16,9 +16,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from topfusion_tpu.config import PoseGraphConfig
-from topfusion_tpu.geometry.se3 import se3_exp, se3_inverse
-from topfusion_tpu.models.posegraph import (
+from topfusion.config import PoseGraphConfig
+from topfusion.geometry.se3 import se3_exp, se3_inverse
+from topfusion.models.posegraph import (
     DESC_DIM,
     PoseGraph,
     edge_residuals,

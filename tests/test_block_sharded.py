@@ -7,14 +7,12 @@ to well under a voxel, and the union of per-shard maps must cover the
 same blocks.
 """
 
-import dataclasses
-
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from topfusion_tpu.config import (
+from topfusion.config import (
     BlockMapConfig,
     CameraConfig,
     ICPConfig,
@@ -23,10 +21,10 @@ from topfusion_tpu.config import (
     RaycastConfig,
     TSDFConfig,
 )
-from topfusion_tpu.io.synthetic import SyntheticScene, orbit_trajectory
-from topfusion_tpu.models.block_pipeline import BlockPipeline
-from topfusion_tpu.ops.blockmap import EMPTY_KEY
-from topfusion_tpu.parallel.block_sharded import (
+from topfusion.io.synthetic import SyntheticScene, orbit_trajectory
+from topfusion.models.block_pipeline import BlockPipeline
+from topfusion.ops.blockmap import EMPTY_KEY
+from topfusion.parallel.block_sharded import (
     ShardedBlockPipeline,
     dryrun_sharded_block_step,
     make_mesh,
@@ -153,40 +151,3 @@ def test_sharded_reset_on_garbage():
     state, aux = pipe.step(state, d)
     assert bool(aux.ok) and int(state.frame) == 1
 
-
-def test_sharded_pallas_integrate_matches_sharded_xla():
-    """The sharded step with the fused Pallas integrate (interpret mode
-    on the CPU mesh) must track the sharded XLA-integrate run: same
-    kernel the single-device pipeline uses, operating on each shard's
-    local visible slab (round-3 VERDICT missing #2)."""
-    cfg = make_cfg()
-    cfg_p = dataclasses.replace(
-        cfg, blockmap=dataclasses.replace(
-            cfg.blockmap, use_pallas_integrate=True
-        )
-    )
-    scene = SyntheticScene()
-    gt = orbit_trajectory(4, max_angle_deg=3.0, max_shift=0.03, seed=3)
-    frames = [
-        scene.render_depth_mm(cfg.camera, jnp.asarray(T, jnp.float32))
-        for T in gt
-    ]
-    mesh = make_mesh(2)
-
-    tr = {}
-    for name, c in (("xla", cfg), ("pallas", cfg_p)):
-        pipe = ShardedBlockPipeline(c, mesh)
-        s = pipe.init()
-        traj = []
-        for f in frames:
-            s, aux = pipe.step(s, f)
-            assert bool(aux.ok)
-            assert int(aux.integrate_skipped) == 0
-            traj.append(np.asarray(s.T_wc))
-        tr[name] = (np.stack(traj), np.asarray(s.tsdf), np.asarray(s.weight))
-
-    t_err = np.abs(tr["xla"][0][:, :3, 3] - tr["pallas"][0][:, :3, 3]).max()
-    assert t_err < 1e-4, f"pallas-integrate sharded run diverged: {t_err}"
-    # Pool agreement: same update set, same fused values.
-    np.testing.assert_allclose(tr["pallas"][2], tr["xla"][2], atol=1e-5)
-    np.testing.assert_allclose(tr["pallas"][1], tr["xla"][1], atol=1e-4)

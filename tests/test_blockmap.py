@@ -6,8 +6,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from topfusion_tpu.config import BlockMapConfig
-from topfusion_tpu.ops.blockmap import (
+from topfusion.config import BlockMapConfig
+from topfusion.ops.blockmap import (
     EMPTY_KEY,
     allocate,
     in_coord_range,

@@ -6,7 +6,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from topfusion_tpu.config import (
+from topfusion.config import (
     CameraConfig,
     DenseVolumeConfig,
     ICPConfig,
@@ -15,8 +15,8 @@ from topfusion_tpu.config import (
     RaycastConfig,
     TSDFConfig,
 )
-from topfusion_tpu.io.synthetic import SyntheticScene
-from topfusion_tpu.models.pipeline import DensePipeline
+from topfusion.io.synthetic import SyntheticScene
+from topfusion.models.pipeline import DensePipeline
 
 
 def make_cfg():
@@ -65,7 +65,7 @@ def test_color_fusion_and_render():
 
 def make_block_cfg():
     import dataclasses
-    from topfusion_tpu.config import BlockMapConfig
+    from topfusion.config import BlockMapConfig
 
     cfg = make_cfg()
     return dataclasses.replace(
@@ -83,7 +83,7 @@ def make_block_cfg():
 def test_block_color_fusion_and_render():
     # Hashed-map color variant (reference: Voxel_s_rgb applies to the live
     # hashed scene, VoxelTypes.hpp:8-67) — mirrors the dense test above.
-    from topfusion_tpu.models.block_pipeline import BlockPipeline
+    from topfusion.models.block_pipeline import BlockPipeline
 
     cfg = make_block_cfg()
     scene = SyntheticScene()
@@ -116,7 +116,7 @@ def test_block_color_fusion_and_render():
 
 def test_block_color_disabled_dummy():
     import dataclasses
-    from topfusion_tpu.models.block_pipeline import BlockPipeline
+    from topfusion.models.block_pipeline import BlockPipeline
 
     cfg = make_block_cfg()
     cfg = dataclasses.replace(

@@ -11,14 +11,14 @@ import jax.numpy as jnp
 import numpy as np
 
 from tests.test_pipeline_block import make_cfg
-from topfusion_tpu.geometry.viewpath import (
+from topfusion.geometry.viewpath import (
     look_at,
     map_centroid,
     move_pose,
     orbit_path,
 )
-from topfusion_tpu.io.synthetic import SyntheticScene
-from topfusion_tpu.models.block_pipeline import BlockPipeline
+from topfusion.io.synthetic import SyntheticScene
+from topfusion.models.block_pipeline import BlockPipeline
 
 
 def _mapped_state():
@@ -46,7 +46,7 @@ def test_orbit_path_renders_off_trajectory():
     zmin, zmax = cfg.tsdf.view_frustum_min, cfg.tsdf.view_frustum_max
     for i, T in enumerate(path[1:], 1):
         assert np.abs(T - np.asarray(state.T_wc)).max() > 1e-3
-        from topfusion_tpu.ops.tsdf_block import raycast_blocks
+        from topfusion.ops.tsdf_block import raycast_blocks
 
         rc = pipe._free_view_raycast(state, jnp.asarray(T))
         hit = np.asarray(rc.hit)
@@ -105,12 +105,12 @@ def test_view_script_noninteractive(tmp_path):
     import os
 
     cfg, pipe, state = _mapped_state()
-    from topfusion_tpu.utils.checkpoint import save_state
-    from topfusion_tpu.utils.config_io import save_config
+    from topfusion.utils.checkpoint import save_state
+    from topfusion.utils.config_io import save_config
 
     run_dir = str(tmp_path / "run")
     os.makedirs(run_dir)
-    save_config(os.path.join(run_dir, "config.yaml"), cfg)
+    save_config(os.path.join(run_dir, "config.json"), cfg)
     save_state(os.path.join(run_dir, "state.npz"), state)
 
     env = dict(os.environ)

@@ -5,15 +5,15 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from topfusion_tpu.config import CameraConfig, PreprocConfig
-from topfusion_tpu.geometry.camera import backproject_grid
-from topfusion_tpu.ops.depth import (
+from topfusion.config import CameraConfig, PreprocConfig
+from topfusion.geometry.camera import backproject_grid
+from topfusion.ops.depth import (
     depth_to_meters,
     bilateral_filter,
     truncate_depth,
     downsample_depth,
 )
-from topfusion_tpu.ops.normals import compute_points_normals, resize_points_normals
+from topfusion.ops.normals import compute_points_normals, resize_points_normals
 
 CAM = CameraConfig(width=32, height=24, fx=30.0, fy=30.0, cx=16.0, cy=12.0)
 

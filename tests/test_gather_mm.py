@@ -4,7 +4,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from topfusion_tpu.ops.gather_mm import banded_projective_gather
+from topfusion.ops.gather_mm import banded_projective_gather
 
 
 def make_map(H, W, C, seed=0):

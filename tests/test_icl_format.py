@@ -48,7 +48,7 @@ def test_icl_sequence_through_loader_and_app(tmp_path):
     assert os.path.exists(os.path.join(seq_dir, "depth.txt"))
 
     # Loader auto-detects the ICL convention from the negative fy.
-    from topfusion_tpu.io.datasets import ICLSequence, open_sequence
+    from topfusion.io.datasets import ICLSequence, open_sequence
 
     seq = open_sequence(seq_dir)
     assert isinstance(seq, ICLSequence)

@@ -4,13 +4,13 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from topfusion_tpu.config import CameraConfig, ICPConfig, PreprocConfig
-from topfusion_tpu.geometry.se3 import se3_exp, se3_log, se3_inverse
-from topfusion_tpu.io.synthetic import SyntheticScene
-from topfusion_tpu.ops.depth import build_depth_pyramid
-from topfusion_tpu.ops.normals import build_maps_pyramid
-from topfusion_tpu.geometry.se3 import transform_points, rotate_vectors
-from topfusion_tpu.ops.icp import icp_track, build_normal_equations
+from topfusion.config import CameraConfig, ICPConfig, PreprocConfig
+from topfusion.geometry.se3 import se3_exp, se3_log, se3_inverse
+from topfusion.io.synthetic import SyntheticScene
+from topfusion.ops.depth import build_depth_pyramid
+from topfusion.ops.normals import build_maps_pyramid
+from topfusion.geometry.se3 import transform_points, rotate_vectors
+from topfusion.ops.icp import icp_track, build_normal_equations
 
 CAM = CameraConfig(width=160, height=120, fx=120.0, fy=120.0, cx=80.0, cy=60.0)
 PRE = PreprocConfig()

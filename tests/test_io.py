@@ -7,14 +7,14 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from topfusion_tpu.config import tiny_test_config
-from topfusion_tpu.geometry.se3 import se3_exp
-from topfusion_tpu.io.trajectory import (
+from topfusion.config import tiny_test_config
+from topfusion.geometry.se3 import se3_exp
+from topfusion.io.trajectory import (
     ate_rmse,
     load_tum_trajectory,
     save_tum_trajectory,
 )
-from topfusion_tpu.utils.checkpoint import load_state, save_state
+from topfusion.utils.checkpoint import load_state, save_state
 
 
 def random_poses(n, seed=0):
@@ -49,7 +49,7 @@ def test_ate_alignment_invariance():
 
 
 def test_checkpoint_roundtrip(tmp_path):
-    from topfusion_tpu.models.block_pipeline import BlockPipeline
+    from topfusion.models.block_pipeline import BlockPipeline
 
     cfg = tiny_test_config()
     pipe = BlockPipeline(cfg)
@@ -66,7 +66,7 @@ def test_checkpoint_roundtrip(tmp_path):
 
 
 def test_checkpoint_shape_mismatch(tmp_path):
-    from topfusion_tpu.models.block_pipeline import BlockPipeline
+    from topfusion.models.block_pipeline import BlockPipeline
     import dataclasses
 
     cfg = tiny_test_config()
@@ -88,7 +88,7 @@ def _write_depth_png(path, arr):
 
 
 def test_native_png_decode_matches_imageio(tmp_path):
-    from topfusion_tpu.io.native_loader import decode_png_native, native_available
+    from topfusion.io.native_loader import decode_png_native, native_available
 
     if not native_available():
         pytest.skip("native lib not built")
@@ -102,7 +102,7 @@ def test_native_png_decode_matches_imageio(tmp_path):
 
 
 def test_native_loader_sequence(tmp_path):
-    from topfusion_tpu.io.native_loader import NativeFrameLoader, native_available
+    from topfusion.io.native_loader import NativeFrameLoader, native_available
 
     if not native_available():
         pytest.skip("native lib not built")
@@ -126,7 +126,7 @@ def test_native_loader_sequence(tmp_path):
 
 
 def test_tum_sequence_parsing(tmp_path):
-    from topfusion_tpu.io.datasets import TUMSequence
+    from topfusion.io.datasets import TUMSequence
 
     root = tmp_path / "seq"
     os.makedirs(root / "depth")
@@ -139,7 +139,7 @@ def test_tum_sequence_parsing(tmp_path):
         lines.append(f"{i*0.1:.4f} {rel}")
     (root / "depth.txt").write_text("# header\n" + "\n".join(lines) + "\n")
     save_poses = random_poses(3)
-    from topfusion_tpu.io.trajectory import save_tum_trajectory
+    from topfusion.io.trajectory import save_tum_trajectory
 
     save_tum_trajectory(str(root / "groundtruth.txt"), save_poses, [0.0, 0.1, 0.2])
     seq = TUMSequence(str(root))
@@ -151,9 +151,9 @@ def test_tum_sequence_parsing(tmp_path):
 
 
 def test_pointcloud_extraction():
-    from topfusion_tpu.config import DenseVolumeConfig, TSDFConfig, CameraConfig
-    from topfusion_tpu.ops.tsdf_dense import make_dense_volume, integrate_dense
-    from topfusion_tpu.ops.pointcloud import extract_pointcloud_dense, save_ply
+    from topfusion.config import DenseVolumeConfig, TSDFConfig, CameraConfig
+    from topfusion.ops.tsdf_dense import make_dense_volume, integrate_dense
+    from topfusion.ops.pointcloud import extract_pointcloud_dense, save_ply
 
     cam = CameraConfig(width=64, height=48, fx=48.0, fy=48.0, cx=32.0, cy=24.0)
     tsdf = TSDFConfig(voxel_size=0.01, trunc_dist=0.04)
@@ -173,7 +173,7 @@ def test_pointcloud_extraction():
 
 
 def test_save_ply(tmp_path):
-    from topfusion_tpu.ops.pointcloud import PointCloud, save_ply
+    from topfusion.ops.pointcloud import PointCloud, save_ply
 
     pc = PointCloud(
         points=jnp.asarray([[0.0, 0, 0], [1, 2, 3], [0, 0, 0]]),

@@ -14,16 +14,16 @@ import dataclasses
 import jax.numpy as jnp
 import numpy as np
 
-from topfusion_tpu.config import tiny_test_config
-from topfusion_tpu.geometry.se3 import se3_exp, se3_inverse
-from topfusion_tpu.io.synthetic import SyntheticScene
-from topfusion_tpu.models.posegraph import (
+from topfusion.config import tiny_test_config
+from topfusion.geometry.se3 import se3_exp, se3_inverse
+from topfusion.io.synthetic import SyntheticScene
+from topfusion.models.posegraph import (
     add_keyframe,
     detect_loop,
     kf_descriptor,
     make_pose_graph,
 )
-from topfusion_tpu.ops.normals import compute_points_normals
+from topfusion.ops.normals import compute_points_normals
 
 
 DRIFT = 0.7  # meters — larger than loop_max_dist = 0.5

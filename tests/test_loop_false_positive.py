@@ -17,15 +17,15 @@ import dataclasses
 import jax.numpy as jnp
 import numpy as np
 
-from topfusion_tpu.config import tiny_test_config
-from topfusion_tpu.geometry.se3 import se3_exp
-from topfusion_tpu.io.synthetic import SyntheticScene
-from topfusion_tpu.models.posegraph import (
+from topfusion.config import tiny_test_config
+from topfusion.geometry.se3 import se3_exp
+from topfusion.io.synthetic import SyntheticScene
+from topfusion.models.posegraph import (
     add_keyframe,
     detect_loop,
     make_pose_graph,
 )
-from topfusion_tpu.ops.normals import compute_points_normals
+from topfusion.ops.normals import compute_points_normals
 
 
 def _kf_maps(scene, cam, T_true):

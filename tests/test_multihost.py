@@ -1,10 +1,10 @@
 """Multi-host runtime: scaling harness + 2-process jax.distributed loopback.
 
-SURVEY.md section 4(d): pod behaviour is testable without TPUs via the
-single-process virtual mesh (the other tests) AND a real 2-process
-``jax.distributed`` bring-up over loopback, exercised here by spawning
-two Python subprocesses that form one 2-process CPU cluster, build a
-global mesh, and psum across process boundaries.
+SURVEY.md section 4(d): multi-host behaviour is testable without
+accelerators via the single-process virtual mesh (the other tests) AND a
+real 2-process ``jax.distributed`` bring-up over loopback, exercised here
+by spawning two Python subprocesses that form one 2-process CPU cluster,
+build a global mesh, and psum across process boundaries.
 """
 
 import os
@@ -16,7 +16,7 @@ import textwrap
 import numpy as np
 import pytest
 
-from topfusion_tpu.parallel.multihost import (
+from topfusion.parallel.multihost import (
     measure_scaling_block,
     run_block_pipeline_demo,
 )
@@ -24,7 +24,7 @@ from topfusion_tpu.parallel.multihost import (
 
 def test_measure_scaling_block_runs():
     """The scaling harness runs 1/2/4/8 virtual devices and reports an
-    efficiency number (CPU-mesh timings are not the TPU numbers; this
+    efficiency number (CPU-mesh timings are not device numbers; this
     guards the harness itself)."""
     from tests.test_block_sharded import make_cfg
 
@@ -43,7 +43,7 @@ _WORKER = textwrap.dedent(
     jax.config.update("jax_platforms", "cpu")
     pid = int(sys.argv[1]); coord = sys.argv[2]
 
-    from topfusion_tpu.parallel.multihost import initialize_multihost
+    from topfusion.parallel.multihost import initialize_multihost
     initialize_multihost(
         coordinator_address=coord, num_processes=2, process_id=pid
     )
@@ -143,7 +143,7 @@ _PIPELINE_WORKER = textwrap.dedent(
     jax.config.update("jax_platforms", "cpu")
     pid = int(sys.argv[1]); coord = sys.argv[2]
 
-    from topfusion_tpu.parallel.multihost import (
+    from topfusion.parallel.multihost import (
         initialize_multihost, run_block_pipeline_demo,
     )
     initialize_multihost(
@@ -172,7 +172,7 @@ _RESUME_WORKER = textwrap.dedent(
     pid = int(sys.argv[1]); coord = sys.argv[2]
     ckpt = sys.argv[3]; crash_at = int(sys.argv[4])
 
-    from topfusion_tpu.parallel.multihost import (
+    from topfusion.parallel.multihost import (
         initialize_multihost, run_block_pipeline_demo,
     )
     initialize_multihost(

@@ -12,11 +12,11 @@ import dataclasses
 import jax.numpy as jnp
 import numpy as np
 
-from topfusion_tpu.config import CameraConfig, tiny_test_config
-from topfusion_tpu.io.synthetic import SyntheticScene, orbit_trajectory
-from topfusion_tpu.io.trajectory import ate_rmse
-from topfusion_tpu.models.block_pipeline import BlockPipeline
-from topfusion_tpu.ops.normals import compute_points_normals
+from topfusion.config import CameraConfig, tiny_test_config
+from topfusion.io.synthetic import SyntheticScene, orbit_trajectory
+from topfusion.io.trajectory import ate_rmse
+from topfusion.models.block_pipeline import BlockPipeline
+from topfusion.ops.normals import compute_points_normals
 
 
 def _neg_fy_cfg():

@@ -6,15 +6,15 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from topfusion_tpu.config import CameraConfig, PoseGraphConfig
-from topfusion_tpu.geometry.se3 import se3_exp, se3_inverse
-from topfusion_tpu.models.posegraph import (
+from topfusion.config import CameraConfig, PoseGraphConfig
+from topfusion.geometry.se3 import se3_exp, se3_inverse
+from topfusion.models.posegraph import (
     add_keyframe,
     make_pose_graph,
     optimize,
 )
-from topfusion_tpu.parallel.dist_ba import optimize_distributed
-from topfusion_tpu.parallel.sharded_pipeline import dryrun_sharded_step, make_mesh
+from topfusion.parallel.dist_ba import optimize_distributed
+from topfusion.parallel.sharded_pipeline import dryrun_sharded_step, make_mesh
 
 CAM_L = CameraConfig(width=20, height=16, fx=15.0, fy=15.0, cx=10.0, cy=8.0)
 PG_CFG = PoseGraphConfig(max_keyframes=16, max_edges=64, gn_iters=6)

@@ -15,7 +15,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from topfusion_tpu.config import (
+from topfusion.config import (
     BlockMapConfig,
     CameraConfig,
     ICPConfig,
@@ -25,13 +25,13 @@ from topfusion_tpu.config import (
     TSDFConfig,
     reference_exact_config,
 )
-from topfusion_tpu.io.synthetic import (
+from topfusion.io.synthetic import (
     SyntheticScene,
     add_depth_noise,
     orbit_trajectory,
 )
-from topfusion_tpu.io.trajectory import ate_rmse
-from topfusion_tpu.models.block_pipeline import BlockPipeline
+from topfusion.io.trajectory import ate_rmse
+from topfusion.models.block_pipeline import BlockPipeline
 
 N_FRAMES = 16
 
@@ -100,7 +100,7 @@ def test_fast_mode_matches_reference_semantics(noise_mm):
     # sub-voxel and the residual gap is splat-surfel quantization, which
     # shrinks with voxel size.  At the production VGA / 5 mm operating
     # point the measured ratios are 1.15 (noise 0) and 0.96 (noise 1 mm)
-    # — scripts/parity_ab.py on TPU, recorded in docs/RESULTS.md.
+    # — scripts/parity_ab.py, recorded in docs/RESULTS.md.
     slack = 0.2 * fast_cfg.tsdf.voxel_size
     assert ate_fast <= 1.1 * ate_exact + slack, (
         f"fast {ate_fast*1000:.2f} mm vs exact {ate_exact*1000:.2f} mm "

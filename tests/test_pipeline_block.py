@@ -5,7 +5,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from topfusion_tpu.config import (
+from topfusion.config import (
     BlockMapConfig,
     CameraConfig,
     DenseVolumeConfig,
@@ -15,11 +15,11 @@ from topfusion_tpu.config import (
     RaycastConfig,
     TSDFConfig,
 )
-from topfusion_tpu.io.synthetic import SyntheticScene, orbit_trajectory
-from topfusion_tpu.io.trajectory import ate_rmse
-from topfusion_tpu.models.block_pipeline import BlockPipeline
-from topfusion_tpu.models.pipeline import DensePipeline
-from topfusion_tpu.ops.tsdf_block import raycast_blocks
+from topfusion.io.synthetic import SyntheticScene, orbit_trajectory
+from topfusion.io.trajectory import ate_rmse
+from topfusion.models.block_pipeline import BlockPipeline
+from topfusion.models.pipeline import DensePipeline
+from topfusion.ops.tsdf_block import raycast_blocks
 
 
 def make_cfg():

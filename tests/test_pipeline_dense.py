@@ -5,7 +5,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from topfusion_tpu.config import (
+from topfusion.config import (
     CameraConfig,
     DenseVolumeConfig,
     ICPConfig,
@@ -14,9 +14,9 @@ from topfusion_tpu.config import (
     RaycastConfig,
     TSDFConfig,
 )
-from topfusion_tpu.io.synthetic import SyntheticScene, orbit_trajectory
-from topfusion_tpu.io.trajectory import ate_rmse
-from topfusion_tpu.models.pipeline import DensePipeline
+from topfusion.io.synthetic import SyntheticScene, orbit_trajectory
+from topfusion.io.trajectory import ate_rmse
+from topfusion.models.pipeline import DensePipeline
 
 
 def make_cfg():

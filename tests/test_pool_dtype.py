@@ -1,7 +1,7 @@
 """Compact voxel storage: bfloat16 pool end-to-end validation.
 
 The reference packs sdf into int16 + uint8 weight (~3 bytes/voxel,
-reference: VoxelTypes.hpp:69-92); the TPU analogue is a bfloat16 pool
+reference: VoxelTypes.hpp:69-92); one compact analogue is a bfloat16 pool
 (4 bytes/voxel for tsdf+weight vs 8 at f32) — integrate/splat/raycast are
 HBM-bound, so storage width is bandwidth.  These tests establish that the
 ``pool_dtype="bfloat16"`` flag is accuracy-safe:
@@ -20,7 +20,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from topfusion_tpu.config import (
+from topfusion.config import (
     BlockMapConfig,
     CameraConfig,
     ICPConfig,
@@ -29,10 +29,10 @@ from topfusion_tpu.config import (
     RaycastConfig,
     TSDFConfig,
 )
-from topfusion_tpu.io.synthetic import SyntheticScene, orbit_trajectory
-from topfusion_tpu.io.trajectory import ate_rmse
-from topfusion_tpu.models.block_pipeline import BlockPipeline
-from topfusion_tpu.ops.tsdf_block import raycast_blocks
+from topfusion.io.synthetic import SyntheticScene, orbit_trajectory
+from topfusion.io.trajectory import ate_rmse
+from topfusion.models.block_pipeline import BlockPipeline
+from topfusion.ops.tsdf_block import raycast_blocks
 
 
 def make_cfg(pool_dtype="float32"):
@@ -178,7 +178,7 @@ def test_i16_weights_are_exact_integers(i16_runs):
 def test_i16_unintegrated_space_reads_free():
     # A fresh int16 map must read semantic tsdf = 1.0 everywhere the
     # hash misses AND on allocated-but-unfused voxels (encoded 32767).
-    from topfusion_tpu.ops.blockmap import (
+    from topfusion.ops.blockmap import (
         make_block_map, read_voxels_nearest,
     )
 
@@ -221,7 +221,7 @@ def test_compact_pool_max_weight_validated():
 
     import pytest
 
-    from topfusion_tpu.config import (
+    from topfusion.config import (
         BlockMapConfig,
         PipelineConfig,
         TSDFConfig,

@@ -5,10 +5,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from topfusion_tpu.config import CameraConfig, ICPConfig, PoseGraphConfig
-from topfusion_tpu.geometry.se3 import se3_exp, se3_log, se3_inverse
-from topfusion_tpu.io.synthetic import SyntheticScene
-from topfusion_tpu.models.posegraph import (
+from topfusion.config import CameraConfig, ICPConfig, PoseGraphConfig
+from topfusion.geometry.se3 import se3_exp, se3_log, se3_inverse
+from topfusion.io.synthetic import SyntheticScene
+from topfusion.models.posegraph import (
     PoseGraph,
     add_keyframe,
     detect_loop,
@@ -16,9 +16,9 @@ from topfusion_tpu.models.posegraph import (
     make_pose_graph,
     optimize,
 )
-from topfusion_tpu.ops.depth import build_depth_pyramid
-from topfusion_tpu.ops.normals import compute_points_normals
-from topfusion_tpu.config import PreprocConfig
+from topfusion.ops.depth import build_depth_pyramid
+from topfusion.ops.normals import compute_points_normals
+from topfusion.config import PreprocConfig
 
 CAM = CameraConfig(width=80, height=64, fx=60.0, fy=60.0, cx=40.0, cy=32.0)
 CAM_L = CAM.at_level(1)

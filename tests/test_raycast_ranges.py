@@ -3,8 +3,8 @@
 The reference rasterizes per-pixel zmin/zmax from the visible blocks
 before every raycast (reference: CreateExpectedDepths,
 VisualisationEngine_CUDA.cu:119-173, VisualisationHelper.cu:52-121) so
-castRay only marches the occupied band.  These tests check the TPU
-rebuild (ops/tsdf_block.expected_depth_ranges):
+castRay only marches the occupied band.  These tests check the
+re-design (ops/tsdf_block.expected_depth_ranges):
 
   * the band brackets the true surface depth wherever the full march hits;
   * a ranged raycast with far fewer lockstep steps reproduces the
@@ -17,7 +17,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from topfusion_tpu.config import (
+from topfusion.config import (
     BlockMapConfig,
     CameraConfig,
     PipelineConfig,
@@ -26,9 +26,9 @@ from topfusion_tpu.config import (
     TSDFConfig,
     ICPConfig,
 )
-from topfusion_tpu.io.synthetic import SyntheticScene, orbit_trajectory
-from topfusion_tpu.models.block_pipeline import BlockPipeline
-from topfusion_tpu.ops.tsdf_block import (
+from topfusion.io.synthetic import SyntheticScene, orbit_trajectory
+from topfusion.models.block_pipeline import BlockPipeline
+from topfusion.ops.tsdf_block import (
     expected_depth_ranges,
     raycast_blocks,
     visible_blocks,

@@ -15,9 +15,9 @@ import jax.numpy as jnp
 import numpy as np
 
 from tests.test_slam import make_cfg, out_and_back
-from topfusion_tpu.io.synthetic import SyntheticScene
-from topfusion_tpu.models.slam import SlamSystem
-from topfusion_tpu.ops.pointcloud import extract_pointcloud_blocks
+from topfusion.io.synthetic import SyntheticScene
+from topfusion.models.slam import SlamSystem
+from topfusion.ops.pointcloud import extract_pointcloud_blocks
 
 
 def _surface_rms(scene: SyntheticScene, state, cfg) -> float:
@@ -115,7 +115,7 @@ def test_ring_records_and_survives_double_closure():
     )
     slam = _run(base, frames)
     assert slam.reintegrations >= 2, "needs two closures to test re-anchor"
-    from topfusion_tpu.io.trajectory import ate_rmse
+    from topfusion.io.trajectory import ate_rmse
 
     gt_np = [np.asarray(g) for g in gt[: len(slam.odom_poses)]]
     ate = ate_rmse(slam.optimized_trajectory(), gt_np)

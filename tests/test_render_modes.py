@@ -7,10 +7,10 @@ missing #4)."""
 import jax.numpy as jnp
 import numpy as np
 
-from topfusion_tpu.config import tiny_test_config
-from topfusion_tpu.io.synthetic import SyntheticScene
-from topfusion_tpu.models.block_pipeline import BlockPipeline
-from topfusion_tpu.ops.rendering import render_confidence_rgb
+from topfusion.config import tiny_test_config
+from topfusion.io.synthetic import SyntheticScene
+from topfusion.models.block_pipeline import BlockPipeline
+from topfusion.ops.rendering import render_confidence_rgb
 
 
 def test_confidence_rgb_ramp():

@@ -3,7 +3,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from topfusion_tpu.geometry import (
+from topfusion.geometry import (
     se3_exp,
     se3_log,
     so3_exp,

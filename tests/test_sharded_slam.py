@@ -19,7 +19,7 @@ import dataclasses
 import jax.numpy as jnp
 import numpy as np
 
-from topfusion_tpu.config import (
+from topfusion.config import (
     BlockMapConfig,
     CameraConfig,
     ICPConfig,
@@ -29,12 +29,12 @@ from topfusion_tpu.config import (
     RaycastConfig,
     TSDFConfig,
 )
-from topfusion_tpu.geometry.se3 import se3_exp
-from topfusion_tpu.io.synthetic import SyntheticScene, corridor_scene
-from topfusion_tpu.io.trajectory import ate_rmse
-from topfusion_tpu.models.slam import SlamSystem
-from topfusion_tpu.parallel.block_sharded import make_mesh
-from topfusion_tpu.parallel.sharded_slam import (
+from topfusion.geometry.se3 import se3_exp
+from topfusion.io.synthetic import SyntheticScene, corridor_scene
+from topfusion.io.trajectory import ate_rmse
+from topfusion.models.slam import SlamSystem
+from topfusion.parallel.block_sharded import make_mesh
+from topfusion.parallel.sharded_slam import (
     ShardedSlamSystem,
     dryrun_sharded_slam,
 )
@@ -126,13 +126,13 @@ def test_composed_beyond_capacity_with_loop_at_parity():
     """Sweep out a corridor past the aggregate pool capacity, come back
     (evicted territory re-enters, a loop closes), with the per-shard
     host swap attached — ATE parity with an uncapped composed run."""
-    from topfusion_tpu.geometry.se3 import se3_exp as _se3exp
-    from topfusion_tpu.io.synthetic import sweep_trajectory
+    from topfusion.geometry.se3 import se3_exp as _se3exp
+    from topfusion.io.synthetic import sweep_trajectory
 
     # The corridor-sweep operating point proven by test_swap's sharded
     # test (its default 7x7 bilateral is load-bearing on the return
     # leg), plus the pose-graph machinery.
-    from topfusion_tpu.config import tiny_test_config
+    from topfusion.config import tiny_test_config
 
     base = tiny_test_config()
     cam = base.camera
@@ -180,7 +180,7 @@ def test_composed_beyond_capacity_with_loop_at_parity():
     mesh = make_mesh(N_DEV)
 
     def run(cfg):
-        from topfusion_tpu.models.host_cache import ShardedHostCache
+        from topfusion.models.host_cache import ShardedHostCache
 
         slam = ShardedSlamSystem(cfg, mesh)
         if slam.swap is not None:
@@ -277,9 +277,8 @@ def test_chunk_executable_stable_across_signatures():
     state, or after a loop-closure optimize/reintegrate: sharded chunk
     outputs carry committed mesh shardings that host-created warmup
     inputs do not, and before warmup replayed the steady-state + post-
-    loop signatures the second real chunk recompiled (~40 s remote on
-    the v5e — measured 2 fps composed runs).  Pin: the jit cache stops
-    growing after warmup."""
+    loop signatures the second real chunk recompiled (tens of seconds
+    per recompile).  Pin: the jit cache stops growing after warmup."""
     import dataclasses as _dc
 
     cfg = make_cfg()

@@ -4,7 +4,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from topfusion_tpu.config import (
+from topfusion.config import (
     BlockMapConfig,
     CameraConfig,
     ICPConfig,
@@ -14,10 +14,10 @@ from topfusion_tpu.config import (
     RaycastConfig,
     TSDFConfig,
 )
-from topfusion_tpu.geometry.se3 import se3_exp
-from topfusion_tpu.io.synthetic import SyntheticScene
-from topfusion_tpu.io.trajectory import ate_rmse
-from topfusion_tpu.models.slam import SlamSystem
+from topfusion.geometry.se3 import se3_exp
+from topfusion.io.synthetic import SyntheticScene
+from topfusion.io.trajectory import ate_rmse
+from topfusion.models.slam import SlamSystem
 
 
 def make_cfg():
@@ -78,7 +78,7 @@ def test_map_correction_after_loop():
     and the live pose re-anchors (PoseGraphConfig.map_correction)."""
     import dataclasses
 
-    from topfusion_tpu.ops.tsdf_block import raycast_blocks
+    from topfusion.ops.tsdf_block import raycast_blocks
 
     cfg = make_cfg()
     cfg = dataclasses.replace(

@@ -11,11 +11,11 @@ import dataclasses
 import jax.numpy as jnp
 import numpy as np
 
-from topfusion_tpu.io.synthetic import SyntheticScene
-from topfusion_tpu.io.trajectory import ate_rmse
-from topfusion_tpu.models.slam import SlamSystem
+from topfusion.io.synthetic import SyntheticScene
+from topfusion.io.trajectory import ate_rmse
+from topfusion.models.slam import SlamSystem
 
-from test_slam import make_cfg, out_and_back
+from tests.test_slam import make_cfg, out_and_back
 
 
 def _render_all(cfg, gt):
@@ -140,7 +140,7 @@ def test_chunked_in_dispatch_render():
     # quality renders).
     import jax.numpy as _jnp
 
-    from topfusion_tpu.ops.rendering import phong_shade
+    from topfusion.ops.rendering import phong_shade
 
     T = slam.state.T_wc
     light = T[:3, 3] + _jnp.asarray([0.0, -1.0, -1.0])

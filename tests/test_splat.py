@@ -5,10 +5,10 @@ import numpy as np
 import pytest
 
 from tests.test_pipeline_block import make_cfg
-from topfusion_tpu.io.synthetic import SyntheticScene
-from topfusion_tpu.models.block_pipeline import BlockPipeline
-from topfusion_tpu.ops.splat import splat_model_maps
-from topfusion_tpu.ops.tsdf_block import visible_blocks, raycast_blocks
+from topfusion.io.synthetic import SyntheticScene
+from topfusion.models.block_pipeline import BlockPipeline
+from topfusion.ops.splat import splat_model_maps
+from topfusion.ops.tsdf_block import visible_blocks, raycast_blocks
 
 
 @pytest.fixture(scope="module")

@@ -12,11 +12,11 @@ program (lax.cond on axis_index + ppermute registers) end-to-end.
 import jax.numpy as jnp
 import numpy as np
 
-from topfusion_tpu.config import tiny_test_config
-from topfusion_tpu.io.synthetic import SyntheticScene, orbit_trajectory
-from topfusion_tpu.io.trajectory import ate_rmse
-from topfusion_tpu.models.block_pipeline import BlockPipeline
-from topfusion_tpu.parallel.stream_pipeline import (
+from topfusion.config import tiny_test_config
+from topfusion.io.synthetic import SyntheticScene, orbit_trajectory
+from topfusion.io.trajectory import ate_rmse
+from topfusion.models.block_pipeline import BlockPipeline
+from topfusion.parallel.stream_pipeline import (
     make_pipe_mesh,
     run_stream,
 )
@@ -96,7 +96,7 @@ def test_stream_reset_propagates_and_recovers():
     skipped), and tracking must re-bootstrap on the following frames —
     the streaming analogue of reset-on-loss (reference:
     topfu.cpp:263-264)."""
-    from topfusion_tpu.parallel.stream_pipeline import StreamBlockPipeline
+    from topfusion.parallel.stream_pipeline import StreamBlockPipeline
 
     cfg = tiny_test_config()
     scene = SyntheticScene()

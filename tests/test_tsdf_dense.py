@@ -6,14 +6,14 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from topfusion_tpu.config import (
+from topfusion.config import (
     CameraConfig,
     DenseVolumeConfig,
     RaycastConfig,
     TSDFConfig,
 )
-from topfusion_tpu.io.synthetic import SyntheticScene
-from topfusion_tpu.ops.tsdf_dense import (
+from topfusion.io.synthetic import SyntheticScene
+from topfusion.ops.tsdf_dense import (
     DenseVolume,
     make_dense_volume,
     integrate_dense,

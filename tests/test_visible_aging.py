@@ -12,11 +12,11 @@ import dataclasses
 import jax.numpy as jnp
 import numpy as np
 
-from topfusion_tpu.config import tiny_test_config
-from topfusion_tpu.io.synthetic import SyntheticScene, orbit_trajectory
-from topfusion_tpu.models.block_pipeline import BlockPipeline
-from topfusion_tpu.ops.blockmap import allocate, make_block_map
-from topfusion_tpu.ops.tsdf_block import (
+from topfusion.config import tiny_test_config
+from topfusion.io.synthetic import SyntheticScene, orbit_trajectory
+from topfusion.models.block_pipeline import BlockPipeline
+from topfusion.ops.blockmap import allocate, make_block_map
+from topfusion.ops.tsdf_block import (
     allocate_from_depth,
     visible_blocks,
     visible_blocks_incremental,
@@ -64,7 +64,7 @@ def test_allocate_touched_and_dropped():
 def _dolly_trajectory(n):
     """Monotonic forward dolly: blocks leave the frustum and never
     re-enter, so aged and full-scan visible sets must stay IDENTICAL."""
-    from topfusion_tpu.geometry.se3 import se3_exp
+    from topfusion.geometry.se3 import se3_exp
 
     return [
         np.asarray(

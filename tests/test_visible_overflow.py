@@ -14,10 +14,10 @@ import dataclasses
 
 import jax.numpy as jnp
 
-from topfusion_tpu.config import tiny_test_config
-from topfusion_tpu.io.synthetic import SyntheticScene
-from topfusion_tpu.models.block_pipeline import BlockPipeline
-from topfusion_tpu.ops.blockmap import decode_weight
+from topfusion.config import tiny_test_config
+from topfusion.io.synthetic import SyntheticScene
+from topfusion.models.block_pipeline import BlockPipeline
+from topfusion.ops.blockmap import decode_weight
 
 
 def _cfg(v_max: int):
